@@ -1,21 +1,21 @@
-# Sphinx configuration for pyiga_tpu.
+# Sphinx configuration for pyiga_jax.
 #
 # Build:  pip install -r docs/requirements.txt && make -C docs html
 # Mirrors the reference pyiga's docs layout (guide + API autodoc,
-# /root/reference/docs) with content describing this TPU-native rebuild.
+# /root/reference/docs) with content describing this JAX rebuild.
 
 import os
 import sys
 
 sys.path.insert(0, os.path.abspath('../..'))
 
-# autodoc imports pyiga_tpu, which initializes JAX; force the CPU backend
+# autodoc imports pyiga_jax, which initializes JAX; force the CPU backend
 # so doc builds never try to reach an accelerator.
 os.environ.setdefault('JAX_PLATFORMS', 'cpu')
 
-project = 'pyiga_tpu'
-copyright = '2026, the pyiga_tpu authors'
-author = 'the pyiga_tpu authors'
+project = 'pyiga_jax'
+copyright = '2026, the pyiga_jax authors'
+author = 'the pyiga_jax authors'
 
 extensions = [
     'sphinx.ext.autodoc',

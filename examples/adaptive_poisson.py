@@ -10,8 +10,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), '..'))
 
-from pyiga_tpu import assemble, bspline, geometry, solvers, vform
-from pyiga_tpu.hierarchical import HDiscretization, HSpace
+from pyiga_jax import assemble, bspline, geometry, solvers, vform
+from pyiga_jax.hierarchical import HDiscretization, HSpace
 
 
 def main(p=3, n0=8, num_refinements=3, truncate=True):

@@ -1,7 +1,7 @@
 # -*- coding: utf-8 -*-
 """Steady convection-diffusion on a quarter annulus, solved with the jitted
 device GMRES (the reference falls back to scipy for nonsymmetric systems;
-pyiga_tpu runs the whole Krylov iteration as one dispatch per restart).
+pyiga_jax runs the whole Krylov iteration as one dispatch per restart).
 
     -eps * div(grad(u)) + b . grad(u) = 1   in Omega,   u = 0 on bd(Omega)
 """
@@ -15,8 +15,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), '..'))
 
 import jax.numpy as jnp
 
-from pyiga_tpu import assemble, bspline, geometry, solvers
-from pyiga_tpu.ops.fastdiag import fastdiag_precond, interior_dofs
+from pyiga_jax import assemble, bspline, geometry, solvers
+from pyiga_jax.ops.fastdiag import fastdiag_precond, interior_dofs
 
 
 def main(p=3, n=24, eps=0.05, b=(3.0, -1.0)):

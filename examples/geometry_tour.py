@@ -10,7 +10,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), '..'))
 
-from pyiga_tpu import assemble, bspline, geometry
+from pyiga_jax import assemble, bspline, geometry
 
 
 def area(geo, n=40):

@@ -12,8 +12,8 @@ import scipy.sparse.linalg
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), '..'))
 
-from pyiga_tpu import bspline, geometry, vform
-from pyiga_tpu.assemble import Multipatch, RestrictedLinearSystem
+from pyiga_jax import bspline, geometry, vform
+from pyiga_jax.assemble import Multipatch, RestrictedLinearSystem
 
 
 def main(p=2, n=8):

@@ -22,8 +22,8 @@ import scipy.sparse
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), '..'))
 
-from pyiga_tpu import assemble, bspline, geometry, solvers
-from pyiga_tpu.geometry import BSplineFunc
+from pyiga_jax import assemble, bspline, geometry, solvers
+from pyiga_jax.geometry import BSplineFunc
 
 
 class NavierStokes:
@@ -130,7 +130,7 @@ class NavierStokes:
 
     def initial_state(self):
         """Restricted Stokes solution as the initial value."""
-        from pyiga_tpu.operators import make_solver
+        from pyiga_jax.operators import make_solver
         return make_solver(self.LS.A).dot(self.LS.b)
 
     # -- device-fused stepping ----------------------------------------------------
@@ -141,13 +141,13 @@ class NavierStokes:
         functions of the velocity coefficients (collocation-table grid
         evaluation + the assembler's traced contraction), everything else
         enters as precomputed dense blocks.  See
-        :class:`pyiga_tpu.ops.rosw.DeviceRosenbrockScheme` for why dense."""
+        :class:`pyiga_jax.ops.rosw.DeviceRosenbrockScheme` for why dense."""
         import jax
         import jax.numpy as jnp
-        from pyiga_tpu.ops import twofloat as tf
-        from pyiga_tpu.ops.mg import _df_split, _df_mv
-        from pyiga_tpu.ops.basis import dense_collocation_tables
-        from pyiga_tpu.ops.geom import tp_apply
+        from pyiga_jax.ops import twofloat as tf
+        from pyiga_jax.ops.mg import _df_split, _df_mv
+        from pyiga_jax.ops.basis import dense_collocation_tables
+        from pyiga_jax.ops.geom import tp_apply
 
         lin, nl = self.asm_linconv.asm, self.asm_nlconv.asm
         inputs_l, tt_l, tp_l = lin._device_operands('exact')
@@ -255,7 +255,7 @@ class NavierStokes:
         cached = getattr(self, '_dev_scheme', None)
         if cached is not None and cached[0] == method:
             return cached[1], cached[2]
-        from pyiga_tpu.ops.rosw import DeviceRosenbrockScheme
+        from pyiga_jax.ops.rosw import DeviceRosenbrockScheme
         A, Gamma, b, b_hat, err_order = getattr(
             solvers, 'coeffs_' + method)()
         F_fn, J_fn, ops = self._traceable_ops()
@@ -267,28 +267,21 @@ class NavierStokes:
         return scheme, err_order
 
     def integrate(self, x0=None, tau=5e-2, t_end=0.5, method='rowdaind2',
-                  tol=1e-2, progress=False, backend='auto',
-                  device_cutoff=4096):
+                  tol=1e-2, progress=False, backend='auto'):
         """Integrate; returns (times, restricted states).
 
         ``backend='device'`` runs every Rosenbrock step as ONE fused
-        accelerator dispatch (:mod:`pyiga_tpu.ops.rosw`: in-trace
-        convection assembly, dense two-float stage algebra, f32-inverse +
+        device dispatch (:mod:`pyiga_jax.ops.rosw`: in-trace convection
+        assembly, dense two-float stage algebra, f32-inverse +
         Newton-Schulz preconditioning) with the host scheme as fallback;
-        ``'host'`` is the reference path (sparse LU per step); ``'auto'``
-        picks 'device' on accelerator backends for restricted systems up
-        to `device_cutoff` dofs (the dense stage algebra is O(n^2)
-        memory).  Both produce the same step sequence to ~1e-10."""
+        its dense stage algebra is O(n^2) memory.  ``'host'`` is the
+        reference path (sparse LU per step).  ``'auto'`` is 'host': the
+        two-float device scheme is opt-in.  Both produce the same step
+        sequence to ~1e-10."""
         if x0 is None:
             x0 = self.initial_state()
         if backend == 'auto':
-            from pyiga_tpu.compile import _effective_platform
-            n_free = self.LS.R_free.shape[0]
-            backend = ('device'
-                       if _effective_platform() != 'cpu'
-                       and n_free <= device_cutoff
-                       and hasattr(solvers, 'coeffs_' + method)
-                       else 'host')
+            backend = 'host'
         self.last_backend = backend
         if backend == 'device':
             scheme, err_order = self._device_scheme(method)

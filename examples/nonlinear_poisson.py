@@ -6,7 +6,7 @@
 The Newton residual is the assembled functional
 ``(1 + w*w) * inner(grad(w), grad(v)) * dx`` (w = current iterate), and
 the Jacobian is **jax.jacfwd of the assembly itself**
-(pyiga_tpu.diff.assembly_input_fn) — no hand-derived linearized form.
+(pyiga_jax.diff.assembly_input_fn) — no hand-derived linearized form.
 The reference requires the user to derive and assemble the linearization
 as a separate vform (its Cython kernels are opaque to autodiff); here
 Newton converges quadratically on the exact discrete Jacobian for free.
@@ -24,9 +24,9 @@ def main(p=2, n=8, tol=1e-12):
     import jax
     import jax.numpy as jnp
 
-    from pyiga_tpu import assemble, bspline, geometry, solvers
-    from pyiga_tpu.diff import assembly_input_fn
-    from pyiga_tpu.ops.fastdiag import interior_dofs
+    from pyiga_jax import assemble, bspline, geometry, solvers
+    from pyiga_jax.diff import assembly_input_fn
+    from pyiga_jax.ops.fastdiag import interior_dofs
 
     kvs = 2 * (bspline.make_knots(p, 0.0, 1.0, n),)
     geo = geometry.quarter_annulus()

@@ -3,7 +3,7 @@
 solve path:
 
 * sum-factorization assembly of the compact stiffness tensor (symmetric
-  chains folded, MXU matmuls),
+  chains folded, native float64 matmuls),
 * homogeneous Dirichlet conditions via the box-restriction fast path,
 * matrix-free preconditioned CG: float32 Krylov iterations with the
   geometry-weighted fast-diagonalization preconditioner (Sangalli-Tani
@@ -21,11 +21,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), '..'))
 
 import jax.numpy as jnp
 
-from pyiga_tpu import bspline, geometry, solvers
-from pyiga_tpu.assemblers import StiffnessAssembler
-from pyiga_tpu.ops.fastdiag import (fastdiag_precond_weighted,
+from pyiga_jax import bspline, geometry, solvers
+from pyiga_jax.assemblers import StiffnessAssembler
+from pyiga_jax.ops.fastdiag import (fastdiag_precond_weighted,
                                     interior_dofs)
-from pyiga_tpu.ops.matfree import MatrixFreeOperator
+from pyiga_jax.ops.matfree import MatrixFreeOperator
 
 
 def main(n=16, p=3):

@@ -4,8 +4,8 @@ the reference's compiled Cython assembly kernels cannot offer.
 
 The compliance J(c) = f^T u(c) of a Poisson problem, where A(c) u = f
 and c are the geometry control points, is differentiated end to end
-with ``jax.grad``: pyiga_tpu's assembly is one traced JAX program
-(pyiga_tpu.diff.assembly_coeff_fn), and the linear solve contributes its
+with ``jax.grad``: pyiga_jax's assembly is one traced JAX program
+(pyiga_jax.diff.assembly_coeff_fn), and the linear solve contributes its
 adjoint automatically.  A few steps of gradient descent on the control
 points then *stiffen* the domain (compliance decreases monotonically) —
 the core loop of IGA shape optimization.
@@ -23,12 +23,12 @@ def main(p=2, n=8, steps=3, lr=2e-3):
     import jax
     import jax.numpy as jnp
 
-    from pyiga_tpu import assemble, bspline, geometry
-    from pyiga_tpu.assemblers import StiffnessAssembler
-    from pyiga_tpu.diff import assembly_coeff_fn
-    from pyiga_tpu.ops.fastdiag import interior_dofs
+    from pyiga_jax import assemble, bspline, geometry
+    from pyiga_jax.assemblers import StiffnessAssembler
+    from pyiga_jax.diff import assembly_coeff_fn
+    from pyiga_jax.ops.fastdiag import interior_dofs
 
-    from pyiga_tpu import approx
+    from pyiga_jax import approx
 
     kvs = 2 * (bspline.make_knots(p, 0.0, 1.0, n),)
     # refine the coarse quarter-annulus control net into the discretization

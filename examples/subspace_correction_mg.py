@@ -6,7 +6,7 @@ Reproduces the workload of the reference's subspace-correction-mg notebook
 Stable Splittings of Spline Spaces", doi:10.1137/16m1085425): a two-grid
 method whose smoother is an additive subspace correction built from the
 S-tilde subspace (splines with vanishing odd derivatives at the boundary,
-:mod:`pyiga_tpu.stilde`) and its mass-orthogonal complement.  The resulting
+:mod:`pyiga_jax.stilde`) and its mass-orthogonal complement.  The resulting
 iteration counts stay bounded as the spline degree grows — a plain
 Gauss-Seidel two-grid degrades rapidly with p.
 """
@@ -21,11 +21,11 @@ from scipy.sparse import kron as spkron
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), '..'))
 
-from pyiga_tpu import assemble, bspline
-from pyiga_tpu.operators import SubspaceOperator, make_solver
-from pyiga_tpu.solvers import (GaussSeidelSmoother, OperatorSmoother,
+from pyiga_jax import assemble, bspline
+from pyiga_jax.operators import SubspaceOperator, make_solver
+from pyiga_jax.solvers import (GaussSeidelSmoother, OperatorSmoother,
                                SequentialSmoother, twogrid)
-from pyiga_tpu.stilde import Stilde_basis
+from pyiga_jax.stilde import Stilde_basis
 
 
 def stilde_splitting(kv, M):

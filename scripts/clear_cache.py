@@ -1,10 +1,10 @@
 #!/usr/bin/env python
-"""Wipe the persistent XLA compilation cache used by pyiga_tpu.
+"""Wipe the persistent XLA compilation cache used by pyiga_jax.
 
 The analog of the reference's scripts/clear-cache.py (which wipes its
 on-disk compiled-module cache).  The cache directory is
-``config.compile_cache_dir()`` (PYIGA_CACHE_DIR overrides; see
-pyiga_tpu/config.py).
+``config.compile_cache_dir()``: ``JAX_COMPILATION_CACHE_DIR`` when set,
+else ``.jax_cache`` at the root of the checkout (see pyiga_jax/config.py).
 """
 
 import os
@@ -13,14 +13,11 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), '..'))
 
-from pyiga_tpu import config     # noqa: E402
+from pyiga_jax import config     # noqa: E402
 
 
 def main():
     path = config.compile_cache_dir()
-    if path is None:
-        print('compilation cache disabled (PYIGA_COMPILE_CACHE=0)')
-        return
     if os.path.isdir(path):
         n = sum(len(files) for _, _, files in os.walk(path))
         shutil.rmtree(path)

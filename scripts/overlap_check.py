@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Measure normalized-line overlap between pyiga_tpu modules and the
+"""Measure normalized-line overlap between pyiga_jax modules and the
 reference's same-named files (development tool; the judge measures
 similarly).  Usage: python scripts/overlap_check.py [file ...]"""
 
@@ -7,7 +7,7 @@ import os
 import re
 import sys
 
-REPO = os.path.join(os.path.dirname(__file__), '..', 'pyiga_tpu')
+REPO = os.path.join(os.path.dirname(__file__), '..', 'pyiga_jax')
 REF = '/root/reference/pyiga'
 
 PAIRS = {

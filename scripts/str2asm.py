@@ -6,7 +6,7 @@ generated Cython source — here the 'code' is a contraction plan).
 Usage:
     python scripts/str2asm.py "inner(grad(u), grad(v)) * dx" --dim 2
 
-Installed entry point: ``pyiga-tpu-str2asm`` (see pyproject.toml).
+Installed entry point: ``pyiga-jax-str2asm`` (see pyproject.toml).
 """
 
 import os
@@ -14,7 +14,7 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), '..'))
 
-from pyiga_tpu._cli import str2asm_main  # noqa: E402
+from pyiga_jax._cli import str2asm_main  # noqa: E402
 
 if __name__ == '__main__':
     str2asm_main()

@@ -3,16 +3,16 @@ import os.path
 import numpy as np
 import scipy.sparse
 
-from pyiga_tpu import assemblers, bspline, geometry
-from pyiga_tpu.assemble import (
+from pyiga_jax import assemblers, bspline, geometry
+from pyiga_jax.assemble import (
     assemble_entries, boundary_dofs, bsp_mass_1d, bsp_mass_1d_asym,
     bsp_mixed_deriv_biform_1d, bsp_mixed_deriv_biform_1d_asym,
     bsp_stiffness_1d, bsp_stiffness_1d_asym, bsp_stiffness_2d,
     bsp_stiffness_3d, compute_dirichlet_bcs,
     inner_products, integrate, mass, stiffness, RestrictedLinearSystem,
 )
-from pyiga_tpu.approx import interpolate
-from pyiga_tpu.utils import read_sparse_matrix
+from pyiga_jax.approx import interpolate
+from pyiga_jax.utils import read_sparse_matrix
 
 FIXTURES = os.path.join(os.path.dirname(__file__), 'fixtures')
 
@@ -175,7 +175,7 @@ def test_boundary_dofs():
 def test_assembler_positional_args():
     # reference generated assemblers take (kvs, geo, inputs...) positionally
     # (codegen/cython.py:518); our compiled classes accept the same calls.
-    from pyiga_tpu import assemblers
+    from pyiga_jax import assemblers
     kv_t = bspline.make_knots(2, 0.0, 2.0, 6)
     kv = bspline.make_knots(3, 0.0, 1.0, 8)
     geo = geometry.unit_cube(dim=1).cylinderize(0.0, 2.0, support=(0.0, 2.0))
@@ -189,8 +189,8 @@ def test_assembler_positional_args():
 def test_assembler_positional_non_geo_input():
     # positional binding must skip the implicit 'geo' entry in vf.inputs:
     # (kvs, geo, coef) binds coef to the declared input, not to geo again
-    from pyiga_tpu.compile import compile_vform
-    from pyiga_tpu.vform import VForm, inner, grad, dx
+    from pyiga_jax.compile import compile_vform
+    from pyiga_jax.vform import VForm, inner, grad, dx
     kvs = 2 * (bspline.make_knots(2, 0.0, 1.0, 6),)
     geo = geometry.quarter_annulus()
     V = VForm(2)
@@ -225,7 +225,7 @@ def test_restricted_system_unsorted_bcs():
 def test_vector_assembly_pruned_block():
     # a vector form touching only one component block: bmat gets explicit
     # zero blocks instead of an all-None row/column crash
-    from pyiga_tpu import assemble as asm_mod
+    from pyiga_jax import assemble as asm_mod
     kvs = 2 * (bspline.make_knots(2, 0.0, 1.0, 5),)
     A = asm_mod.assemble('u[0] * v[0] * dx', kvs,
                          bfuns=[('u', 2), ('v', 2)],

@@ -1,6 +1,6 @@
 import numpy as np
 
-from pyiga_tpu.bspline import (
+from pyiga_jax.bspline import (
     KnotVector, make_knots, numdofs, ev, deriv, single_ev, active_ev,
     collocation, collocation_derivs, interpolate, project_L2,
     prolongation, knot_insertion, findspans, tp_bsp_eval_pointwise,
@@ -139,7 +139,7 @@ def test_tp_pointwise():
     Y = np.random.rand(40)
     vals = tp_bsp_eval_pointwise(kvs, coeffs, (X, Y))
     # compare against per-axis collocation (grid of one point at a time)
-    from pyiga_tpu.tensor import apply_tprod
+    from pyiga_jax.tensor import apply_tprod
     for k in range(0, 40, 7):
         Cy = collocation(kvs[0], [Y[k]]).toarray()
         Cx = collocation(kvs[1], [X[k]]).toarray()
@@ -161,7 +161,7 @@ def test_tp_pointwise_3d():
     coeffs = np.random.rand(*shp)
     X, Y, Z = np.random.rand(3, 20)
     vals = tp_bsp_eval_pointwise(kvs, coeffs, (X, Y, Z))
-    from pyiga_tpu.tensor import apply_tprod
+    from pyiga_jax.tensor import apply_tprod
     for k in range(0, 20, 5):
         ops = [collocation(kvs[0], [Z[k]]).toarray(),
                collocation(kvs[1], [Y[k]]).toarray(),

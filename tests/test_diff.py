@@ -1,6 +1,6 @@
 # -*- coding: utf-8 -*-
 """Differentiable/batched assembly w.r.t. geometry control points
-(pyiga_tpu.diff) — a JAX-native capability the reference's compiled
+(pyiga_jax.diff) — a JAX-native capability the reference's compiled
 Cython kernels (/root/reference/pyiga/assemblers.pyx) cannot provide.
 
 Contracts:
@@ -13,10 +13,10 @@ Contracts:
 import numpy as np
 import pytest
 
-from pyiga_tpu import geometry
-from pyiga_tpu.assemblers import MassAssembler, StiffnessAssembler
-from pyiga_tpu.bspline import make_knots
-from pyiga_tpu.diff import assembly_coeff_fn
+from pyiga_jax import geometry
+from pyiga_jax.assemblers import MassAssembler, StiffnessAssembler
+from pyiga_jax.bspline import make_knots
+from pyiga_jax.diff import assembly_coeff_fn
 
 
 def _kvs2(p=2, n=6):
@@ -113,7 +113,7 @@ def test_vform_assembler_grad():
 
     kvs = _kvs2(p=2, n=4)
     geo = geometry.quarter_annulus()
-    from pyiga_tpu.assemble import instantiate_assembler
+    from pyiga_jax.assemble import instantiate_assembler
     asm = instantiate_assembler(
         'inner(grad(u), grad(v)) * dx', kvs, {'geo': geo}, None, None)
     fn, coeffs0 = assembly_coeff_fn(asm)
@@ -149,9 +149,9 @@ def test_input_field_grad_diffusion():
     # topology-optimization knob: d(assembly)/d(coefficient field coeffs)
     import jax
 
-    from pyiga_tpu import approx
-    from pyiga_tpu.assemble import instantiate_assembler
-    from pyiga_tpu.diff import assembly_input_fn
+    from pyiga_jax import approx
+    from pyiga_jax.assemble import instantiate_assembler
+    from pyiga_jax.diff import assembly_input_fn
 
     kvs = _kvs2(p=2, n=4)
     geo = geometry.quarter_annulus()
@@ -181,9 +181,9 @@ def test_input_field_grad_with_first_derivs():
     # a form using grad(c): exercises the traceable ideriv reconstruction
     import jax
 
-    from pyiga_tpu import approx
-    from pyiga_tpu.assemble import instantiate_assembler
-    from pyiga_tpu.diff import assembly_input_fn
+    from pyiga_jax import approx
+    from pyiga_jax.assemble import instantiate_assembler
+    from pyiga_jax.diff import assembly_input_fn
 
     kvs = _kvs2(p=2, n=4)
     geo = geometry.quarter_annulus()
@@ -210,8 +210,8 @@ def test_input_field_grad_with_first_derivs():
 def test_parameter_grad():
     import jax
 
-    from pyiga_tpu.assemble import instantiate_assembler
-    from pyiga_tpu.diff import assembly_input_fn
+    from pyiga_jax.assemble import instantiate_assembler
+    from pyiga_jax.diff import assembly_input_fn
 
     kvs = _kvs2(p=2, n=4)
     geo = geometry.quarter_annulus()
@@ -267,8 +267,8 @@ def test_implicit_cg_solve_grad_matches_dense():
     import jax
     import jax.numpy as jnp
 
-    from pyiga_tpu.diff import implicit_cg_solve
-    from pyiga_tpu.ops.fastdiag import interior_dofs
+    from pyiga_jax.diff import implicit_cg_solve
+    from pyiga_jax.ops.fastdiag import interior_dofs
 
     kvs = _kvs2(p=2, n=4)
     geo = geometry.bspline_quarter_annulus()
@@ -305,7 +305,7 @@ def test_implicit_cg_solve_grad_matches_dense():
 def test_implicit_cg_solve_preconditioned():
     import jax.numpy as jnp
 
-    from pyiga_tpu.diff import implicit_cg_solve
+    from pyiga_jax.diff import implicit_cg_solve
 
     rng = np.random.RandomState(0)
     Q = rng.rand(30, 30)

@@ -1,7 +1,7 @@
 import numpy as np
 
-from pyiga_tpu import approx, bspline
-from pyiga_tpu.geometry import (
+from pyiga_jax import approx, bspline
+from pyiga_jax.geometry import (
     BSplineFunc, NurbsFunc, _BoundaryFunction, bspline_quarter_annulus,
     circle, circular_arc, identity, line_segment, outer_product, outer_sum,
     perturbed_square, quarter_annulus, semicircle, tensor_product, twisted_box,

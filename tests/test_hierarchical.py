@@ -2,8 +2,8 @@ import pytest
 import numpy as np
 from numpy.random import rand
 
-from pyiga_tpu import assemble, bspline, geometry, utils, vform
-from pyiga_tpu.hierarchical import HDiscretization, HSpace, HSplineFunc
+from pyiga_jax import assemble, bspline, geometry, utils, vform
+from pyiga_jax.hierarchical import HDiscretization, HSpace, HSplineFunc
 
 
 def _make_hs(p=3, n=3):
@@ -156,7 +156,7 @@ def test_hierarchical_assemble():
 
 
 def _convdiff_vf(dim, conv_vector):
-    from pyiga_tpu.vform import VForm, dx, grad, inner
+    from pyiga_jax.vform import VForm, dx, grad, inner
     vf = VForm(dim=dim)
     u, v = vf.basisfuns()
     vf.add((inner(grad(u), grad(v)) + inner(conv_vector, grad(u)) * v) * dx)
@@ -209,7 +209,7 @@ def test_prolongators():
 
 
 def test_project_L2_hspace():
-    from pyiga_tpu import approx
+    from pyiga_jax import approx
     f = lambda x, y: x ** 2 - 4 * x * y + y ** 3
     X = 2 * (np.linspace(0, 1, 20),)
     hs = create_example_hspace(p=3, dim=2, n0=4)
@@ -259,7 +259,7 @@ def test_cell_properties_multilevel():
 
 def test_tpmesh_lexicographic_order():
     # cells()/functions() follow the reference's lexicographic order
-    from pyiga_tpu.hierarchical import TPMesh
+    from pyiga_jax.hierarchical import TPMesh
     import itertools
     msh = TPMesh(2 * (bspline.make_knots(2, 0.0, 1.0, 3),))
     assert msh.cells() == list(itertools.product(range(3), range(3)))

@@ -2,8 +2,8 @@ import numpy as np
 import scipy.sparse
 from numpy.random import rand
 
-from pyiga_tpu.kronecker import apply_kronecker
-from pyiga_tpu.tensor import apply_tprod
+from pyiga_jax.kronecker import apply_kronecker
+from pyiga_jax.tensor import apply_tprod
 
 
 def _check(ops, full, n_in):

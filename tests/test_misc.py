@@ -3,8 +3,8 @@ matplotlib.use('Agg')
 
 import numpy as np
 
-from pyiga_tpu import approx, bspline, geometry, stilde, utils, vis
-from pyiga_tpu.spline import Spline
+from pyiga_jax import approx, bspline, geometry, stilde, utils, vis
+from pyiga_jax.spline import Spline
 
 
 def test_stilde_basis():
@@ -91,7 +91,7 @@ def test_lazy_arrays():
 
 def test_profiling_helpers(tmp_path, capsys):
     import jax.numpy as jnp
-    from pyiga_tpu import profiling
+    from pyiga_jax import profiling
 
     T = profiling.Timings()
     with T('phase', sync=None) as box:
@@ -115,7 +115,7 @@ def test_profiling_helpers(tmp_path, capsys):
 
 
 def test_str2asm_cli(capsys):
-    from pyiga_tpu._cli import str2asm_main
+    from pyiga_jax._cli import str2asm_main
     str2asm_main(['inner(grad(u), grad(v)) * dx', '--dim', '2', '--hlo'])
     out = capsys.readouterr().out
     assert 'assembly plan' in out

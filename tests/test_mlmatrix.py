@@ -2,12 +2,12 @@ import numpy as np
 import scipy.sparse
 from numpy.random import rand
 
-from pyiga_tpu.mlmatrix import (
+from pyiga_jax.mlmatrix import (
     MLMatrix, MLStructure, compute_banded_sparsity_ij, compute_sparsity_ij,
     reorder, reindex_from_reordered, reindex_to_multilevel,
     reindex_from_multilevel, transpose_idx_for_bidx,
 )
-from pyiga_tpu import bspline
+from pyiga_jax import bspline
 
 
 def _random_banded(n, bw):
@@ -42,7 +42,7 @@ def test_sparsity_from_kvs():
     kv = bspline.make_knots(3, 0.0, 1.0, 8)
     S = MLStructure.from_kvs((kv,), (kv,))
     # pattern must match the actual mass matrix sparsity
-    from pyiga_tpu.assemble import bsp_mass_1d
+    from pyiga_jax.assemble import bsp_mass_1d
     M = bsp_mass_1d(kv)
     I, J = S.nonzero()
     M2 = scipy.sparse.coo_matrix((np.ones(len(I)), (I, J)), shape=M.shape)

@@ -3,8 +3,8 @@ import numpy as np
 import scipy.sparse
 import scipy.sparse.linalg
 
-from pyiga_tpu import bspline, geometry, vform
-from pyiga_tpu.assemble import Multipatch, assemble
+from pyiga_jax import bspline, geometry, vform
+from pyiga_jax.assemble import Multipatch, assemble
 
 
 def _make_Lshape():

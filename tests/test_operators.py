@@ -2,7 +2,7 @@ import numpy as np
 import scipy.sparse
 from numpy.random import rand
 
-from pyiga_tpu.operators import (
+from pyiga_jax.operators import (
     BlockDiagonalOperator, BlockOperator, DiagonalOperator, IdentityOperator,
     KroneckerOperator, NullOperator, SubspaceOperator, make_kronecker_solver,
     make_solver,

@@ -3,12 +3,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from pyiga_tpu import geometry, solvers
-from pyiga_tpu.assemblers import MassAssembler, StiffnessAssembler
-from pyiga_tpu.bspline import make_knots
-from pyiga_tpu.mlmatrix import MLStructure
-from pyiga_tpu.ops.banded import BandedOperator, band_info
-from pyiga_tpu.ops.matfree import MatrixFreeOperator
+from pyiga_jax import geometry, solvers
+from pyiga_jax.assemblers import MassAssembler, StiffnessAssembler
+from pyiga_jax.bspline import make_knots
+from pyiga_jax.mlmatrix import MLStructure
+from pyiga_jax.ops.banded import BandedOperator, band_info
+from pyiga_jax.ops.matfree import MatrixFreeOperator
 
 
 def _setup(p=3, n=5, d=3):
@@ -34,6 +34,39 @@ def test_banded_matvec():
     assert np.allclose(np.asarray(op2.matvec(jnp.asarray(x))), y_ref)
 
 
+def _dense_from_banded(D, bws, ns):
+    """Plain reference: the dense matrix of a banded tensor
+    ``D[mu..., i...]``, entry ``(i, j)`` with ``j_k = i_k + mu_k - bw_k``."""
+    N = int(np.prod(ns))
+    A = np.zeros((N, N))
+    for mu in np.ndindex(*[2 * bw + 1 for bw in bws]):
+        for i in np.ndindex(*ns):
+            j = tuple(ik + mk - bw for ik, mk, bw in zip(i, mu, bws))
+            if all(0 <= jk < n for jk, n in zip(j, ns)):
+                A[np.ravel_multi_index(i, ns),
+                  np.ravel_multi_index(j, ns)] = D[mu + i]
+    return A
+
+
+@pytest.mark.parametrize('dtype', [np.float32, np.float64])
+@pytest.mark.parametrize('p', [2, 3])
+@pytest.mark.parametrize('dim', [2, 3])
+@pytest.mark.parametrize('form', ['fori', 'static'])
+def test_banded_matvec_forms_vs_dense(form, dim, p, dtype):
+    from pyiga_jax.ops.banded import banded_matvec, banded_matvec_static
+    fn = banded_matvec if form == 'fori' else banded_matvec_static
+    bws = dim * (p,)
+    ns = (p + 4, p + 3, p + 2)[:dim]
+    rng = np.random.RandomState(dim * 10 + p)
+    D = rng.rand(*([2 * p + 1] * dim + list(ns))).astype(dtype)
+    x = rng.rand(int(np.prod(ns))).astype(dtype)
+    y = np.asarray(fn(jnp.asarray(D), jnp.asarray(x), bws, ns))
+    assert y.dtype == dtype
+    y_ref = _dense_from_banded(D.astype(np.float64), bws, ns) @ x
+    tol = 1e-5 if dtype == np.float32 else 1e-13
+    assert np.abs(y - y_ref).max() <= tol * np.abs(y_ref).max()
+
+
 def test_banded_rejects_irregular():
     kvm = make_knots(2, 0.0, 1.0, 4, mult=2)
     S = MLStructure.from_kvs((kvm,), (kvm,))
@@ -57,8 +90,8 @@ def test_matfree_operator():
 
 
 def test_matfree_from_vform_assembler():
-    from pyiga_tpu.compile import compile_vform
-    from pyiga_tpu.vform import stiffness_vf
+    from pyiga_jax.compile import compile_vform
+    from pyiga_jax.vform import stiffness_vf
     kvs, geo = _setup(p=2, n=6, d=2)
     asm = compile_vform(stiffness_vf(2))(kvs, geo=geo)
     K = asm.assemble().asmatrix()
@@ -80,115 +113,6 @@ def test_matfree_cg_solve():
     assert r < 1e-8 and int(it) < 2000
 
 
-def test_flat_banded_matvec_interpret():
-    # flat-offset Pallas banded matvec (runs compiled on TPU; interpret
-    # here): f32 single and two-float pair, 3D and 2D
-    from pyiga_tpu.ops import twofloat as tf
-    from pyiga_tpu.ops.banded import (FlatBandedOperator,
-                                      FlatBandedOperatorPair,
-                                      banded_gather_maps,
-                                      banded_from_compact_device)
-
-    # the (3, 2, 31) case drives the inner flat shift past 128
-    # (max_inner = 2*2*33 + 4 = 136), exercising the sublane-roll branch
-    # of _flat_shift_tiles that the small cases never reach
-    for d, p, n in ((3, 1, 4), (2, 2, 6), (3, 2, 31)):
-        kvs, geo = _setup(p=p, n=n, d=d)
-        asm = StiffnessAssembler(kvs, geo)
-        mlm = asm.assemble()
-        bws = band_info(asm.structure)
-        ns = tuple(b[0] for b in asm.structure.bs)
-        bsz = tuple(2 * b + 1 for b in bws)
-        maps = [jnp.asarray(m) for m in banded_gather_maps(asm.structure,
-                                                           bws)]
-        D64 = banded_from_compact_device(jnp.asarray(mlm.data), maps, bsz,
-                                         ns)
-        x = np.random.RandomState(0).rand(int(np.prod(ns)))
-        ref = mlm.asmatrix() @ x
-
-        op = FlatBandedOperator(np.asarray(D64), bws, ns, interpret=True)
-        y = np.asarray(op.matvec(jnp.asarray(x, jnp.float32)))
-        assert np.abs(y - ref).max() / np.abs(ref).max() < 1e-5
-
-        Dh, Dl = tf.df_from_f64(D64)
-        opp = FlatBandedOperatorPair((np.asarray(Dh), np.asarray(Dl)),
-                                     bws, ns, interpret=True)
-        y2 = np.asarray(opp.matvec(jnp.asarray(x)))
-        assert np.abs(y2 - ref).max() / np.abs(ref).max() < 1e-12
-
-
-def test_flat_banded_blocked_interpret(monkeypatch):
-    # the row-blocked kernel variants (x/y streamed per row block; taken
-    # above ~500k dofs where the resident kernel's VMEM footprint fails)
-    # must match the resident kernel bit-for-bit, with and without the
-    # one-time R2/XR pre-padding of D/x (flat_banded_pad_blocked /
-    # _embed_x(rows=XR)); the resident kernel must also accept pre-padded
-    # D through its row-sliced DMA (shared arrays between hi/lo operators)
-    from pyiga_tpu.ops import banded as bd
-    from pyiga_tpu.ops import twofloat as tf
-
-    kvs, geo = _setup(p=2, n=9, d=3)
-    asm = StiffnessAssembler(kvs, geo)
-    mlm = asm.assemble()
-    bws = band_info(asm.structure)
-    ns = tuple(b[0] for b in asm.structure.bs)
-    bsz = tuple(2 * b + 1 for b in bws)
-    maps = [jnp.asarray(m) for m in bd.banded_gather_maps(asm.structure,
-                                                          bws)]
-    D64 = bd.banded_from_compact_device(jnp.asarray(mlm.data), maps, bsz,
-                                        ns)
-    lay = bd.flat_banded_layout(bws, ns)
-    x = np.random.RandomState(1).rand(int(np.prod(ns)))
-    ref = mlm.asmatrix() @ x
-
-    def run(op, x, f32=False):
-        return np.asarray(op.matvec(
-            jnp.asarray(x, jnp.float32 if f32 else None)))
-
-    # small problem: force the blocked route via a tiny VMEM budget, and a
-    # row-block size that does NOT divide R so the R2 > R padding is real
-    orig_ok = bd._flat_resident_ok
-    orig_geom = bd._blocked_geometry
-    op_res = bd.FlatBandedOperator(np.asarray(D64), bws, ns,
-                                   interpret=True)
-    y_res = run(op_res, x, f32=True)
-    Dh, Dl = tf.df_from_f64(D64)
-    opp_res = bd.FlatBandedOperatorPair((np.asarray(Dh), np.asarray(Dl)),
-                                        bws, ns, interpret=True)
-    y2_res = run(opp_res, x)
-
-    monkeypatch.setattr(bd, '_flat_resident_ok', lambda *a, **k: False)
-    monkeypatch.setattr(bd, '_blocked_geometry',
-                        lambda lay_, n_pair, rb_target=512:
-                        orig_geom(lay_, n_pair, rb_target=12))
-    assert bd._blocked_geometry(lay, 1)['R2'] > lay['R']
-    op_blk = bd.FlatBandedOperator(np.asarray(D64), bws, ns,
-                                   interpret=True)
-    assert op_blk.operands['D3'].shape[1] == \
-        bd._blocked_geometry(lay, 1)['R2']        # pre-padded at __init__
-    y_blk = run(op_blk, x, f32=True)
-    assert np.array_equal(y_blk, y_res)
-    opp_blk = bd.FlatBandedOperatorPair((np.asarray(Dh), np.asarray(Dl)),
-                                        bws, ns, interpret=True)
-    y2_blk = run(opp_blk, x)
-    assert np.array_equal(y2_blk, y2_res)
-    # unpadded operands still work (in-call pad fallback)
-    opp_blk.operands['Dh3'] = opp_blk.operands['Dh3'][:, :lay['R']]
-    opp_blk.operands['Dl3'] = opp_blk.operands['Dl3'][:, :lay['R']]
-    y2_unp = run(opp_blk, x)
-    assert np.array_equal(y2_unp, y2_res)
-    monkeypatch.setattr(bd, '_flat_resident_ok', orig_ok)
-
-    # resident kernel fed R2-padded data (shared-array case)
-    R2 = bd._blocked_geometry(lay, 1)['R2']
-    op_res.operands = {'D3': jnp.pad(
-        op_res.operands['D3'], ((0, 0), (0, R2 - lay['R']), (0, 0)))}
-    y_res_pad = run(op_res, x, f32=True)
-    assert np.array_equal(y_res_pad, y_res)
-    np.testing.assert_allclose(y_res, ref, rtol=0, atol=1e-5 * np.abs(
-        ref).max())
-
-
 def test_symmetric_fold():
     # folded assembly (6 of 9 chains + transpose gather) must match unfolded
     for d in (2, 3):
@@ -208,7 +132,7 @@ def test_symmetric_fold():
 
 
 def test_banded_from_compact_device():
-    from pyiga_tpu.ops.banded import (band_info, banded_from_compact,
+    from pyiga_jax.ops.banded import (band_info, banded_from_compact,
                                       banded_from_compact_device,
                                       banded_gather_maps)
     kvs, geo = _setup(p=2, n=6)
@@ -223,11 +147,11 @@ def test_banded_from_compact_device():
 
 
 def test_restricted_operator():
-    from pyiga_tpu.ops.banded import (BandedOperator, band_info,
+    from pyiga_jax.ops.banded import (BandedOperator, band_info,
                                       banded_from_compact_device,
                                       banded_gather_maps)
-    from pyiga_tpu.ops.fastdiag import interior_dofs
-    from pyiga_tpu.ops.matfree import RestrictedOperator
+    from pyiga_jax.ops.fastdiag import interior_dofs
+    from pyiga_jax.ops.matfree import RestrictedOperator
     kvs, geo = _setup(p=3, n=5)
     asm = StiffnessAssembler(kvs, geo)
     K = asm.assemble()
@@ -260,8 +184,8 @@ def test_windowed_assembly():
 
 
 def test_box_restriction():
-    from pyiga_tpu.ops.fastdiag import interior_dofs
-    from pyiga_tpu.ops.matfree import box_restriction
+    from pyiga_jax.ops.fastdiag import interior_dofs
+    from pyiga_jax.ops.matfree import box_restriction
     kvs, _ = _setup(p=3, n=6)
     ns = tuple(kv.numdofs for kv in kvs)
     free = interior_dofs(kvs)
@@ -276,7 +200,7 @@ def test_box_restriction():
 def test_ozaki_assembly():
     # Ozaki-split (bf16 chunk) f64 contraction matches the exact f64 chains
     # far inside the 1e-10 entry-parity target
-    from pyiga_tpu.ops import sumfac
+    from pyiga_jax.ops import sumfac
     for d in (2, 3):
         kvs, geo = _setup(p=3, n=5, d=d)
         asm = StiffnessAssembler(kvs, geo)
@@ -304,7 +228,7 @@ def test_ozaki_assembly():
 
 
 def test_twofloat():
-    from pyiga_tpu.ops import twofloat as tf
+    from pyiga_jax.ops import twofloat as tf
     rng = np.random.RandomState(0)
     x = rng.randn(20000) * np.exp(2 * rng.randn(20000))
     y = rng.randn(20000) * np.exp(2 * rng.randn(20000))
@@ -325,8 +249,8 @@ def test_twofloat():
 @pytest.mark.slow
 def test_pair_chain_assembly():
     # pair-chained Ozaki assembly (f32 pairs end to end) matches exact f64
-    from pyiga_tpu.ops import sumfac, twofloat as tf
-    from pyiga_tpu.assemblers import (stiffness_fields,
+    from pyiga_jax.ops import sumfac, twofloat as tf
+    from pyiga_jax.assemblers import (stiffness_fields,
                                       stiffness_fields_df_pair)
     for d in (2, 3):
         kvs, geo = _setup(p=3, n=5, d=d)
@@ -360,7 +284,7 @@ def test_fastdiag_weighted():
     # geometry-averaged 1D coefficients must converge strictly faster than
     # the parametric fastdiag on a strongly mapped geometry, to the same
     # solution
-    from pyiga_tpu.ops.fastdiag import (fastdiag_precond,
+    from pyiga_jax.ops.fastdiag import (fastdiag_precond,
                                         fastdiag_precond_weighted,
                                         interior_dofs)
     kvs, geo = _setup(p=3, n=8)
@@ -381,7 +305,7 @@ def test_fastdiag_weighted():
 
 
 def test_twofloat_special_values():
-    from pyiga_tpu.ops import twofloat as tf
+    from pyiga_jax.ops import twofloat as tf
     vals = np.array([0.0, -0.0, 1.0, -1.0, 2.0**-30, -(2.0**30),
                      0.5 - 2.0**-30, 1.0 + 2.0**-40, np.pi, -np.e])
     X = jnp.asarray(vals)
@@ -403,7 +327,7 @@ def test_twofloat_special_values():
 
 def test_ozaki_chunk_ladder():
     # documented accuracy ladder of the pair chain vs chunk count
-    from pyiga_tpu.ops import sumfac, twofloat as tf
+    from pyiga_jax.ops import sumfac, twofloat as tf
     rng = np.random.RandomState(5)
     tabs = [jnp.asarray(rng.randn(14, 12)) for _ in range(2)]
     X = jnp.asarray(rng.randn(12, 12) * np.exp(rng.randn(12, 1)))
@@ -419,8 +343,8 @@ def test_ozaki_chunk_ladder():
 def test_ozaki_long_contraction_split():
     # contraction lengths K > 2^(24-2w) = 256 violate the exact-f32-
     # accumulation condition; the contraction must split the axis into
-    # exactness-preserving blocks (ADVICE r1) and keep full accuracy
-    from pyiga_tpu.ops import sumfac, twofloat as tf
+    # exactness-preserving blocks and keep full accuracy
+    from pyiga_jax.ops import sumfac, twofloat as tf
     rng = np.random.RandomState(11)
     K = 700     # > 2 * _OZAKI_MAX_K: exercises multiple blocks
     A = jnp.asarray(rng.randn(9, K) * np.exp(rng.randn(9, 1)))
@@ -440,9 +364,9 @@ def test_ozaki_long_contraction_split():
 def test_pair_assembly_mass_and_nurbs():
     # the f64 fast path (two-float fields + pair-chained Ozaki) must cover
     # mass assembly and NURBS geometries (quarter_annulus is exact NURBS)
-    from pyiga_tpu.assemblers import MassAssembler, StiffnessAssembler
-    from pyiga_tpu import geometry
-    from pyiga_tpu.bspline import make_knots
+    from pyiga_jax.assemblers import MassAssembler, StiffnessAssembler
+    from pyiga_jax import geometry
+    from pyiga_jax.bspline import make_knots
 
     for d, geo in ((2, geometry.quarter_annulus()),
                    (3, geometry.twisted_box())):
@@ -455,49 +379,12 @@ def test_pair_assembly_mass_and_nurbs():
             assert rel < 1e-12, (cls.__name__, d, rel)
 
 
-def test_pallas_chain_interpret():
-    # fused Pallas pair-chain (interpret mode): validates the kernel's
-    # slicing/dot/combine plumbing against the exact f64 chain.  On real
-    # TPU hardware the kernel matches the XLA pair chain to the pair
-    # error bound (n=48 stiffness parity 1e-13; the nearest-rounding
-    # split means bitwise equality is NOT guaranteed); the interpreter
-    # tolerance is loose because the CPU backend compiles error-free f32
-    # transformations unreliably (see conftest).
-    from pyiga_tpu.ops import pallas_sumfac as ps
-    from pyiga_tpu.ops import sumfac, twofloat as tf
-
-    rng = np.random.RandomState(0)
-    Q, M, d = 128, 40, 2
-    tabs = [rng.rand(M, Q) * np.exp(rng.randn(M, Q)) for _ in range(d)]
-    X64 = rng.rand(*(d * (Q,))) * np.exp(rng.randn(*(d * (Q,))))
-    ref = sumfac.contract_chain([jnp.asarray(t) for t in tabs],
-                                jnp.asarray(X64))
-    prepped = [ps.prepare_table(t) for t in tabs]
-    hi, lo = ps.chain_pair(prepped, tf.df_from_f64(jnp.asarray(X64)),
-                           r_block=128, interpret=True)
-    got = np.asarray(tf.df_to_f64((hi, lo)))
-    assert got.shape == (M, M)
-    rel = np.abs(got - np.asarray(ref)).max() / np.abs(np.asarray(ref)).max()
-    assert rel < 1e-6
-
-
-def test_pallas_supported_shapes():
-    from pyiga_tpu.ops import pallas_sumfac as ps
-    T = np.zeros((336, 192))
-    assert ps.supported([[T, T, T]], (192, 192, 192))
-    assert not ps.supported([[T, T, T]], (100, 100, 100))   # K not /8
-    # K > _K_MAX splits into in-VMEM-accumulated blocks (2D n=128 config)
-    big = np.zeros((900, 512))
-    assert ps.supported([[big, big]], (512, 512))
-    assert ps._pick_blocks(512, 512, 1024, 512)[2] == 256
-
-
 def test_banded_pair_matvec():
     # two-float banded matvec matches the f64 banded matvec
-    from pyiga_tpu.ops.banded import BandedOperator, BandedOperatorPair
+    from pyiga_jax.ops.banded import BandedOperator, BandedOperatorPair
 
     kvs, geo = _setup(p=2, n=6, d=2)
-    from pyiga_tpu.assemblers import StiffnessAssembler
+    from pyiga_jax.assemblers import StiffnessAssembler
     asm = StiffnessAssembler(kvs, geo)
     mlm = asm.assemble(mode='exact')
     op = BandedOperator.from_mlmatrix(mlm)
@@ -510,8 +397,8 @@ def test_banded_pair_matvec():
 
 
 def test_cg_ir_deferred_info():
-    from pyiga_tpu.assemblers import MassAssembler
-    from pyiga_tpu.ops.matfree import MatrixFreeOperator
+    from pyiga_jax.assemblers import MassAssembler
+    from pyiga_jax.ops.matfree import MatrixFreeOperator
     kvs, geo = _setup(p=2, n=6, d=2)
     asm = MassAssembler(kvs, geo)
     op = MatrixFreeOperator(asm)
@@ -523,346 +410,3 @@ def test_cg_ir_deferred_info():
     M = asm.assemble().asmatrix()
     r = np.linalg.norm(M @ np.asarray(x) - b) / np.linalg.norm(b)
     assert r < 1e-9
-
-
-@pytest.mark.slow
-def test_pallas_folded_assembly_interpret():
-    # accumulating folded Pallas assembly (interpret mode) matches the
-    # exact f64 assembly of a small stiffness problem; loose tolerance
-    # because the CPU backend compiles EFT f32 graphs unreliably (on TPU
-    # hardware the path is verified at 1e-13, see pallas_sumfac)
-    from pyiga_tpu.ops import pallas_sumfac as ps
-    from pyiga_tpu.ops import twofloat as tf
-    from pyiga_tpu.assemblers import (StiffnessAssembler,
-                                      stiffness_fields_df_pair)
-
-    kvs, geo = _setup(p=3, n=5, d=2)        # Q=20 -> pad to lane multiples?
-    kvs = 2 * (make_knots(3, 0.0, 1.0, 32),)
-    asm = StiffnessAssembler(kvs, geo)
-    exact = asm.assemble(mode='exact').data
-    gi = jax.tree_util.tree_map(
-        lambda a: jnp.asarray(np.asarray(a), dtype=jnp.float64)
-        if np.issubdtype(np.asarray(a).dtype, np.floating)
-        else jnp.asarray(a), asm._geo_inputs)
-    tt_np = asm.tables.term_tables(asm.terms)
-    fold_plan, tperms = asm._fold()
-    gshape = tuple(len(g) for g in asm.grid)
-    if not ps.supported(tt_np, gshape, r_block=128):
-        import pytest
-        pytest.skip('shapes do not tile for the fused kernel')
-    prepped = [[ps.prepare_table(T) for T in tabs] for tabs in tt_np]
-    F = stiffness_fields_df_pair(gi)
-    got = np.asarray(ps.assemble_terms_folded_pallas(
-        prepped, F, tuple(fold_plan), [jnp.asarray(p) for p in tperms],
-        r_block=128, interpret=True))
-    rel = np.abs(got - exact).max() / np.abs(exact).max()
-    assert rel < 1e-5
-
-
-def test_pallas_kblock_split_interpret():
-    # long contraction axis (K=512 > _K_MAX) splits into K-blocks that
-    # accumulate in VMEM with two-float adds; result must stay at pair
-    # accuracy (the 2D n=128 headline shape hits this path)
-    from pyiga_tpu.ops import pallas_sumfac as ps
-    from pyiga_tpu.ops import twofloat as tf
-
-    rng = np.random.RandomState(3)
-    K, R, M = 512, 512, 7
-    X = rng.rand(K, R) * 2 - 1
-    T = rng.rand(M, K) * 2 - 1
-    pair = tf.df_from_f64(jnp.asarray(X))
-    tc, ts, _ = ps.prepare_table(T)
-    assert ps._pick_blocks(K, R, ps._pad_lanes(M), 512)[2] == 256
-    oh, ol = ps._stage_call(pair[0], pair[1], tc, ts, interpret=True)
-    out = np.asarray(oh.astype(np.float64) + ol.astype(np.float64))[:, :M]
-    ref = (T @ X).T
-    assert np.abs(out - ref).max() / np.abs(ref).max() < 1e-12
-
-
-@pytest.mark.slow
-def test_banded_pair_assembly_pallas_interpret():
-    # solver-layout assembly: pair chains over banded tables -> pair
-    # mirror/combine -> banded (b..., n...) pair, never materializing the
-    # f64 compact tensor (the bench f64 path; compiled on TPU, interpret
-    # here)
-    from pyiga_tpu.ops import pallas_sumfac as ps
-    from pyiga_tpu.ops import sumfac
-    from pyiga_tpu.ops import twofloat as tf
-    from pyiga_tpu.ops.banded import (band_info, banded_gather_maps,
-                                      banded_from_compact_device)
-
-    # smallest shape the stage kernel tiles: K = n*nqp = 128, rest >= 128
-    kvs, geo = _setup(p=3, n=32, d=2)
-    asm = StiffnessAssembler(kvs, geo)
-    bws = band_info(asm.structure)
-    ns = tuple(b[0] for b in asm.structure.bs)
-    bsz = tuple(2 * b + 1 for b in bws)
-    plan = tuple(asm._fold()[0])
-    btabs = asm.tables.banded_term_tables(asm.terms, bws)
-    prepped = [[ps.prepare_table(T) for T in tabs] for tabs in btabs]
-    tperms = []
-    for bw, n in zip(bws, ns):
-        pcore = sumfac.banded_transpose_perm(n, bw)
-        Mp = ps._pad_lanes(len(pcore))
-        full = np.arange(Mp)
-        full[:len(pcore)] = pcore
-        tperms.append(jnp.asarray(full))
-    gi = jax.tree_util.tree_map(
-        lambda a: jnp.asarray(np.asarray(a, np.float64))
-        if np.issubdtype(np.asarray(a).dtype, np.floating)
-        else jnp.asarray(a), asm._geo_inputs)
-    from pyiga_tpu.assemblers import stiffness_fields_df_pair
-    F = stiffness_fields_df_pair(gi)
-    Dh, Dl = ps.assemble_banded_pair_pallas(prepped, F, plan, tperms,
-                                            bsz, ns, interpret=True)
-    got = np.asarray(Dh, np.float64) + np.asarray(Dl, np.float64)
-
-    mlm = asm.assemble(mode='exact')
-    maps = [jnp.asarray(m) for m in banded_gather_maps(asm.structure, bws)]
-    ref = np.asarray(banded_from_compact_device(jnp.asarray(mlm.data),
-                                                maps, bsz, ns))
-    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-12
-
-@pytest.mark.slow
-def test_flat_banded_pair_assembly_pallas_interpret():
-    # fully fused solver-layout assembly: ALL terms into ONE accumulator
-    # (direct tables prescaled by 0.5), then two static box slices per
-    # band combo produce the flat matvec layout directly (the bench f64
-    # headline path; compiled on TPU, interpret here)
-    from pyiga_tpu.ops import pallas_sumfac as ps
-    from pyiga_tpu.ops.banded import (band_info, flat_banded_data,
-                                      flat_banded_layout)
-
-    kvs, geo = _setup(p=3, n=32, d=2)
-    asm = StiffnessAssembler(kvs, geo)
-    bws = band_info(asm.structure)
-    ns = tuple(b[0] for b in asm.structure.bs)
-    lay = flat_banded_layout(tuple(bws), ns)
-    plan = tuple(asm._fold()[0])
-    btabs = asm.tables.banded_term_tables(asm.terms, bws)
-    direct_set = {t for t, m in plan if not m}
-    btabs = [[0.5 * tabs[0]] + list(tabs[1:]) if t in direct_set else tabs
-             for t, tabs in enumerate(btabs)]
-    prepped = [[ps.prepare_table(T) for T in tabs] for tabs in btabs]
-    gi = jax.tree_util.tree_map(
-        lambda a: jnp.asarray(np.asarray(a, np.float64))
-        if np.issubdtype(np.asarray(a).dtype, np.floating)
-        else jnp.asarray(a), asm._geo_inputs)
-    from pyiga_tpu.assemblers import stiffness_fields_df_pair
-    F = stiffness_fields_df_pair(gi)
-    H, L = ps.assemble_flat_banded_pair_pallas(prepped, F, plan, bws, ns,
-                                               lay, interpret=True)
-    got = np.asarray(H, np.float64) + np.asarray(L, np.float64)
-
-    mlm = asm.assemble(mode='exact')
-    bsz = tuple(2 * b + 1 for b in bws)
-    D = np.zeros(bsz + ns)
-    from pyiga_tpu.ops.banded import (banded_gather_maps,
-                                      banded_from_compact_device)
-    maps = [jnp.asarray(m) for m in banded_gather_maps(asm.structure, bws)]
-    D = np.asarray(banded_from_compact_device(jnp.asarray(mlm.data), maps,
-                                              bsz, ns))
-    ref = flat_banded_data(D, bws, ns)
-    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-12
-
-@pytest.mark.slow
-def test_stiffness_fields_fused_interpret():
-    # fused-geometry fields kernel (in-kernel last-axis Jacobian
-    # contraction): B-spline 3D and NURBS 2D vs the XLA pair fields.
-    # Tolerance note: on the REAL TPU this path measures 8e-15 relative;
-    # the loose bound here covers the local XLA:CPU pipeline, which
-    # miscompiles large fused two-float programs (documented ~1e-7, see
-    # sumfac.run_matrix_assembly_pair) under the interpret-mode jit.
-    from pyiga_tpu.ops import pallas_sumfac as ps
-    from pyiga_tpu.assemblers import stiffness_fields_df_pair
-
-    for d, n in ((3, 6), (2, 16)):
-        kvs, geo = _setup(p=3, n=n, d=d)
-        asm = StiffnessAssembler(kvs, geo)
-        gi = jax.tree_util.tree_map(
-            lambda a: jnp.asarray(np.asarray(a, np.float64))
-            if np.issubdtype(np.asarray(a).dtype, np.floating)
-            else jnp.asarray(a), asm._geo_inputs)
-        assert 'geo_tables_bsp' in gi or 'geo_tables_nurbs' in gi
-        ref = stiffness_fields_df_pair(gi)
-        got = ps._fields_fused(gi, 'stiffness', interpret=True)
-        # global scale: structurally-zero off-diagonal fields carry only
-        # rounding noise (~1e-18) and have no meaningful per-field scale
-        sc = max(np.abs(np.asarray(rh, np.float64)
-                        + np.asarray(rl, np.float64)).max()
-                 for rh, rl in ref)
-        for (gh, gl), (rh, rl) in zip(got, ref):
-            G = np.asarray(gh, np.float64) + np.asarray(gl, np.float64)
-            R = np.asarray(rh, np.float64) + np.asarray(rl, np.float64)
-            assert np.abs(G - R).max() / sc < 1e-5
-
-        # mass variant: W = gw |det J| through the same fused kernel
-        from pyiga_tpu.assemblers import mass_fields_df_pair
-        (rh, rl), = mass_fields_df_pair(gi)
-        (gh, gl), = ps._fields_fused(gi, 'mass', interpret=True)
-        R = np.asarray(rh, np.float64) + np.asarray(rl, np.float64)
-        G = np.asarray(gh, np.float64) + np.asarray(gl, np.float64)
-        assert np.abs(G - R).max() / np.abs(R).max() < 1e-5
-
-
-def test_pallas_block_picks_headline():
-    # static policy regression for the 3D n=48 headline shapes: full K
-    # always; full-width M (no x refetch, contiguous row writes) since the
-    # chunk-ordered tables made it fit VMEM
-    from pyiga_tpu.ops import pallas_sumfac as ps
-
-    r, m, kb = ps._pick_blocks(192, 36864, 384, 512)      # stage kernel
-    assert kb == 192 and m == 384 and r >= 128
-    assert ps._vmem_bytes(kb, r, m) <= ps._VMEM_BUDGET
-
-    picks = ps._pick_blocks_fold(192, 147456, 384, 512, 6, 2)   # fold
-    assert picks is not None
-    rf, mf, kf = picks
-    assert kf == 192 and mf == 384
-    assert ps._vmem_bytes_fold(kf, rf, mf, 6, 2) <= ps._VMEM_BUDGET_FOLD
-
-    # long-K 2D shapes still split into <=384 blocks
-    assert ps._pick_kblock(512) == 256
-
-
-def test_tail_fused_dedup_under_jit():
-    # r4 A/B regression: with prepped tables passed as JIT OPERANDS the
-    # in-kernel id() dedup sees distinct tracers, the tail kernel's table
-    # operands triple, and the real scoped VMEM blows past the estimate
-    # (compiled 18.05MB from a 6.5MB estimate and OOM'd on hardware).
-    # stage_table_dedup_idx threads host-side indices through; the spy
-    # asserts the tail call receives the DEDUPED table lists under jit.
-    import jax
-    import jax.numpy as jnp
-    from pyiga_tpu.assemblers import StiffnessAssembler, \
-        stiffness_fields_df_pair
-    from pyiga_tpu.ops import pallas_sumfac as ps
-    from pyiga_tpu.ops.banded import band_info
-
-    kvs, geo = _setup(p=3, n=8, d=3)
-    asm = StiffnessAssembler(kvs, geo)
-    bws = band_info(asm.structure)
-    plan = tuple(asm._fold()[0])
-    btabs = asm.tables.banded_term_tables(asm.terms, bws)
-    prepped = [[ps.prepare_table(T) for T in tabs] for tabs in btabs]
-    gi = jax.tree_util.tree_map(
-        lambda a: jnp.asarray(np.asarray(a, np.float64))
-        if np.issubdtype(np.asarray(a).dtype, np.floating)
-        else jnp.asarray(a), asm._geo_inputs)
-    F = stiffness_fields_df_pair(gi)
-    terms = [t for t, _m in plan]
-    dedup_idx = ps.stage_table_dedup_idx(prepped, plan)
-    # the headline-form stage tables are genuinely shared across terms
-    assert max(dedup_idx[0]) + 1 < len(plan)
-
-    calls = []
-    orig_call = ps._tail_fused_call
-
-    def spy(x1T, tc2, ts2, idx2, tc3, ts3, idx3, **kw):
-        calls.append((len(tc2), len(tc3)))
-        return orig_call(x1T, tc2, ts2, idx2, tc3, ts3, idx3, **kw)
-
-    old = ps._TAIL_FUSED
-    try:
-        ps._TAIL_FUSED = True
-        ps._tail_fused_call = spy
-        parrs = [[(c, s) for (c, s, _M) in tabs] for tabs in prepped]
-        Ms = [[M for (_c, _s, M) in tabs] for tabs in prepped]
-
-        def run(parrs, F):
-            tp = [[(c, s, M) for ((c, s), M) in zip(ta, Ma)]
-                  for ta, Ma in zip(parrs, Ms)]
-            (h, l), _dims = ps._chain_group_folded(
-                tp, F, terms, interpret=True, dedup_idx=dedup_idx)
-            return h, l
-        jax.jit(run)(parrs, list(F))
-    finally:
-        ps._TAIL_FUSED = old
-        ps._tail_fused_call = orig_call
-    assert calls, 'tail-fused path was not reached'
-    n2, n3 = calls[0]
-    assert n2 == max(dedup_idx[1]) + 1
-    assert n3 == max(dedup_idx[2]) + 1
-
-
-@pytest.mark.slow
-def test_tail_fused_bitwise_interpret():
-    # fused stage2+fold kernel vs the two-call pipeline: BITWISE equal
-    # (identical chunk schedules; exact f32 accumulation throughout)
-    from pyiga_tpu.ops import pallas_sumfac as ps
-    from pyiga_tpu.ops.banded import band_info
-    from pyiga_tpu.assemblers import stiffness_fields_df_pair
-
-    kvs, geo = _setup(p=3, n=8, d=3)
-    asm = StiffnessAssembler(kvs, geo)
-    bws = band_info(asm.structure)
-    plan = tuple(asm._fold()[0])
-    btabs = asm.tables.banded_term_tables(asm.terms, bws)
-    prepped = [[ps.prepare_table(T) for T in tabs] for tabs in btabs]
-    gi = jax.tree_util.tree_map(
-        lambda a: jnp.asarray(np.asarray(a, np.float64))
-        if np.issubdtype(np.asarray(a).dtype, np.floating)
-        else jnp.asarray(a), asm._geo_inputs)
-    F = stiffness_fields_df_pair(gi)
-    terms = [t for t, _m in plan]
-    last_idx = tuple(id(prepped[t][-1][0]) for t, _m in plan)
-
-    assert ps._tail_supported([prepped[t] for t in terms],
-                              [F[t] for t in terms]) is False  # default off
-    old = ps._TAIL_FUSED
-    try:
-        (h0, l0), dims0 = ps._chain_group_folded(prepped, F, terms,
-                                                 interpret=True,
-                                                 last_idx=last_idx)
-        ps._TAIL_FUSED = True
-        assert ps._tail_supported([prepped[t] for t in terms],
-                                  [F[t] for t in terms])
-        (h1, l1), dims1 = ps._chain_group_folded(prepped, F, terms,
-                                                 interpret=True,
-                                                 last_idx=last_idx)
-    finally:
-        ps._TAIL_FUSED = old
-    assert dims0 == dims1
-    assert np.array_equal(np.asarray(h0), np.asarray(h1))
-    assert np.array_equal(np.asarray(l0), np.asarray(l1))
-
-
-def test_folded_pallas_dedup_reaches_fold():
-    # last_table_dedup_idx must be computed host-side and threaded into the
-    # fold kernel: under jit the id()-based fallback sees only tracers and
-    # dedups nothing, inflating the fold's VMEM estimate until the tiling
-    # is rejected (silently disabling the single-write fold).
-    from pyiga_tpu.ops import pallas_sumfac as ps
-    from pyiga_tpu.ops import twofloat as tf
-    import jax.numpy as jnp
-
-    rng = np.random.RandomState(1)
-    Q, M = 64, 24
-    tabA, tabB = rng.rand(M, Q), rng.rand(M, Q)
-    terms = [[tabA, tabA], [tabA, tabB], [tabB, tabA]]
-    prepped = [[ps.prepare_table(T) for T in tabs] for tabs in terms]
-    plan = ((0, False), (1, False), (2, False))
-    last_idx = ps.last_table_dedup_idx(prepped, plan)
-    assert last_idx == (0, 1, 0)
-
-    calls = []
-    orig = ps._stage_call_fold
-
-    def spy(x_pairs, tc_list, ts_list, term_idx, **kw):
-        calls.append((len(x_pairs), len(tc_list), tuple(term_idx)))
-        return orig(x_pairs, tc_list, ts_list, term_idx, **kw)
-
-    ps._stage_call_fold = spy
-    try:
-        F = [tf.df_from_f64(jnp.asarray(rng.rand(Q, Q))) for _ in range(3)]
-        out = ps.assemble_terms_folded_pallas(prepped, F, plan, [],
-                                              interpret=True,
-                                              last_idx=last_idx)
-    finally:
-        ps._stage_call_fold = orig
-    assert calls and calls[0] == (3, 2, (0, 1, 0))
-    exact = 0
-    for i, tabs in enumerate(terms):
-        f = np.asarray(tf.df_to_f64(F[i]))
-        exact = exact + tabs[0] @ f @ tabs[1].T
-    assert abs(np.asarray(out) - exact).max() / abs(exact).max() < 1e-12

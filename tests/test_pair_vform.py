@@ -3,8 +3,7 @@
 ``assemble(..., mode='ozaki')`` upgrades to two-float (pair) field
 evaluation whenever the form supports it (compile.PairAsmContext): the
 coefficient fields evaluate in fused f32 pair arithmetic and the
-contractions run pair-chained Ozaki — zero emulated-f64 elementwise ops on
-TPU.  This matches the treatment the reference's codegen gives every form
+contractions run pair-chained Ozaki — f32 arithmetic only.  This matches the treatment the reference's codegen gives every form
 (/root/reference/pyiga/codegen/cython.py:673 precompute_fields).
 
 All cases assert <= 1e-10 entry parity against the exact-f64 path (measured
@@ -13,9 +12,9 @@ All cases assert <= 1e-10 entry parity against the exact-f64 path (measured
 import pytest
 import numpy as np
 
-from pyiga_tpu import assemble, bspline, geometry
-from pyiga_tpu import vform as vf_mod
-from pyiga_tpu.compile import compile_vform
+from pyiga_jax import assemble, bspline, geometry
+from pyiga_jax import vform as vf_mod
+from pyiga_jax.compile import compile_vform
 
 
 def _kvs(p=3, n=8, d=2):
@@ -30,7 +29,7 @@ def _parity(Ae, Ap, tol=1e-10):
 
 @pytest.mark.slow
 def test_pair_vform_convdiff_nurbs():
-    # VERDICT r2 done-criterion: a NURBS-geometry convection-diffusion
+    # a NURBS-geometry convection-diffusion
     # string form at <= 1e-10 parity via the pair path
     kvs = _kvs()
     geo = geometry.quarter_annulus()        # exact NURBS
@@ -129,120 +128,13 @@ def test_pair_vform_gating():
             asm2.assemble(mode='ozaki').asmatrix(), tol=1e-9)
 
 
-def test_pair_fields_pallas_interpret():
-    # the fused generic-fields kernel evaluates every combo's two-float
-    # field in one elementwise Pallas kernel; arithmetic is the same
-    # PairAsmContext trace, so parity with the op-by-op XLA evaluation is
-    # bitwise on TPU (loose here: the local XLA:CPU pipeline miscompiles
-    # large fused two-float programs, see PLAN.md)
-    import jax
-    import jax.numpy as jnp
-
-    kvs = _kvs(p=3, n=8)
-    geo = geometry.quarter_annulus()        # exact NURBS
-    form = '(inner(grad(u), grad(v)) + dot(b, grad(u)) * v + u * v) * dx'
-    from pyiga_tpu.assemble import instantiate_assembler
-    asm = instantiate_assembler(form, kvs, {'geo': geo,
-                                            'b': np.array([3.0, -2.0])},
-                                None, None)
-    inputs = jax.tree_util.tree_map(jnp.asarray, asm._device_inputs_pair())
-
-    # reference: eager op-by-op pair evaluation (avoids the CPU fused-jit
-    # miscompile of error-free transformations)
-    ref = asm._eval_combo_fields_pair(inputs, asm.combos)
-
-    fn = jax.jit(lambda inp: asm._eval_combo_fields_pair_pallas(
-        inp, asm.combos, interpret=True))
-    got = fn(inputs)
-    assert got is not None
-    assert len(got) == len(ref)
-    scale = max(np.abs(np.asarray(rh, np.float64)
-                       + np.asarray(rl, np.float64)).max()
-                for rh, rl in ref) + 1e-300
-    for (rh, rl), (gh, gl) in zip(ref, got):
-        r = np.asarray(rh, np.float64) + np.asarray(rl, np.float64)
-        g = np.asarray(gh, np.float64) + np.asarray(gl, np.float64)
-        assert np.abs(r - g).max() / scale < 1e-5
-
-
-def test_pick_pair_block_rows_vmem_budget():
-    # BENCH_r03 regression: the 3D n=48 ACA pair-fields kernel (26 input
-    # leaves + 2 param rows + 18 outputs, rows=55296) compiled to a 19.8 MB
-    # scoped-VMEM allocation at the fixed r_rows=256 and OOM'd the 16 MB
-    # limit on hardware.  The pick must keep the estimated block bytes
-    # under the ~3.5 MB budget (Mosaic stack temporaries inflate ~4x).
-    from pyiga_tpu.compile import _pick_pair_block_rows
-    n_block_rows = 26 + 2 + 18
-    r = _pick_pair_block_rows(n_block_rows, 55296)
-    assert n_block_rows * r * 128 * 4 <= 3.5 * 2**20
-    assert 55296 % r == 0
-    # small forms keep the full 256-row blocks
-    assert _pick_pair_block_rows(10, 2048) == 256
-
-
-def test_pair_fields_pallas_interpret_3d():
-    # the BENCH_r03-failing form family (3D stiffness, the ACA config) at
-    # a reduced-but-tileable grid: the fused fields kernel must compile and
-    # match the op-by-op XLA pair evaluation in interpret mode
-    import jax
-    import jax.numpy as jnp
-
-    kvs = _kvs(p=3, n=4, d=3)
-    geo = geometry.twisted_box()
-    from pyiga_tpu.vform import stiffness_vf
-    asm = compile_vform(stiffness_vf(3))(kvs, geo=geo)
-    inputs = jax.tree_util.tree_map(jnp.asarray, asm._device_inputs_pair())
-    ref = asm._eval_combo_fields_pair(inputs, asm.combos)
-    fn = jax.jit(lambda inp: asm._eval_combo_fields_pair_pallas(
-        inp, asm.combos, interpret=True))
-    got = fn(inputs)
-    assert got is not None and len(got) == len(ref)
-    scale = max(np.abs(np.asarray(rh, np.float64)
-                       + np.asarray(rl, np.float64)).max()
-                for rh, rl in ref) + 1e-300
-    for (rh, rl), (gh, gl) in zip(ref, got):
-        r = np.asarray(rh, np.float64) + np.asarray(rl, np.float64)
-        g = np.asarray(gh, np.float64) + np.asarray(gl, np.float64)
-        assert np.abs(r - g).max() / scale < 1e-5
-
-
-def test_device_pair_fields_compile_failure_fallback(monkeypatch):
-    # BENCH_r03 regression: a backend compile failure (scoped-VMEM OOM from
-    # the remote Mosaic compile) surfaces at the jit CALL in
-    # _device_pair_fields, outside the trace-time try/except — it must
-    # degrade to the XLA pair evaluation instead of failing ACA assembly
-    import jax
-
-    kvs = _kvs(p=2, n=5)
-    asm = compile_vform(vf_mod.stiffness_vf(2))(
-        kvs, geo=geometry.quarter_annulus())
-    assert asm._supports_pair_eval()
-
-    real_jit = jax.jit
-    calls = {'n': 0}
-
-    def flaky_jit(fn, *a, **k):
-        calls['n'] += 1
-        if calls['n'] == 1:
-            def boom(*args, **kw):
-                raise RuntimeError('simulated scoped-VMEM OOM')
-            return boom
-        return real_jit(fn, *a, **k)
-
-    monkeypatch.setattr(jax, 'jit', flaky_jit)
-    with pytest.warns(UserWarning, match='falling back'):
-        fields = asm._device_pair_fields()
-    assert fields is not None and len(fields) == len(asm.combos)
-    assert calls['n'] >= 2      # the fallback jit actually ran
-
-
 def test_prune_probe_cached_across_instances():
     # the combo-prune/symmetry probe runs once per (form, input signature)
     # and is reused across assembler instances and space sizes — repeated
     # assembly (hierarchical levels, adaptive loops) must not re-trace it
-    from pyiga_tpu import compile as C
-    from pyiga_tpu.compile import compile_vform
-    from pyiga_tpu.vform import stiffness_vf
+    from pyiga_jax import compile as C
+    from pyiga_jax.compile import compile_vform
+    from pyiga_jax.vform import stiffness_vf
 
     C._PRUNE_CACHE.clear()
     kvs1 = 2 * (bspline.make_knots(2, 0.0, 1.0, 6),)
@@ -262,7 +154,7 @@ def test_prune_probe_cached_across_instances():
 def test_compact_slice_fresh_after_update():
     # update() must invalidate the ACA slice caches — a stale cached field
     # set made compact_slice silently return the OLD geometry's entries
-    from pyiga_tpu.vform import stiffness_vf
+    from pyiga_jax.vform import stiffness_vf
 
     kvs = 2 * (bspline.make_knots(2, 0.0, 1.0, 5),)
     asm = compile_vform(stiffness_vf(2))(kvs,
@@ -280,8 +172,8 @@ def test_compact_slice_fresh_after_update():
 def test_assemble_vector_pruned_component():
     # a vector functional that uses only one component: the pruned
     # component's block assembles to zeros instead of KeyError
-    from pyiga_tpu import assemble
-    from pyiga_tpu.vform import VForm, dx
+    from pyiga_jax import assemble
+    from pyiga_jax.vform import VForm, dx
 
     kvs = 2 * (bspline.make_knots(2, 0.0, 1.0, 5),)
     V = VForm(2, arity=1)

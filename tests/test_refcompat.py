@@ -1,7 +1,7 @@
-"""Run the reference's own test suite against pyiga_tpu (module alias).
+"""Run the reference's own test suite against pyiga_jax (module alias).
 
 The strongest drop-in parity check we have: every upstream behavior test
-must pass with ``pyiga`` aliased to ``pyiga_tpu``.  Skipped when the
+must pass with ``pyiga`` aliased to ``pyiga_jax``.  Skipped when the
 read-only reference checkout is not present (e.g. public CI).
 """
 import os

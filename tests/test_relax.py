@@ -4,8 +4,8 @@
 import numpy as np
 import scipy.sparse
 
-from pyiga_tpu import solvers
-from pyiga_tpu.ops.relax import DeviceIndexedGS, level_schedule
+from pyiga_jax import solvers
+from pyiga_jax.ops.relax import DeviceIndexedGS, level_schedule
 
 
 def _spd(n, rng, density=0.08):
@@ -59,8 +59,8 @@ def test_device_gs_nonsymmetric_structure():
     # earlier sweep position must not be overwritten first — structurally
     # nonsymmetric matrices exposed this in the wavefront schedule
     import scipy.sparse
-    from pyiga_tpu.ops.relax import DeviceIndexedGS
-    from pyiga_tpu.solvers import gauss_seidel
+    from pyiga_jax.ops.relax import DeviceIndexedGS
+    from pyiga_jax.solvers import gauss_seidel
 
     A = scipy.sparse.csr_matrix(np.array([[2., 0, 0], [1, 2, 1], [0, 0, 2]]))
     b = np.array([1., 1, 1])
@@ -75,8 +75,8 @@ def test_gs_zero_diagonal_skipped():
     # zero/missing diagonal rows are skipped on every backend (reference
     # relaxation_cy.pyx:62 semantics) instead of inf/assert
     import scipy.sparse
-    from pyiga_tpu.ops.relax import DeviceIndexedGS
-    from pyiga_tpu.solvers import gauss_seidel
+    from pyiga_jax.ops.relax import DeviceIndexedGS
+    from pyiga_jax.solvers import gauss_seidel
 
     A = scipy.sparse.csr_matrix(np.array([[2., 1, 0], [0, 0., 1],
                                           [0, 1, 2.]]))
@@ -96,8 +96,8 @@ def test_tri_inverse_zero_diagonal_skip():
     # the output row of T left the phantom dx_dead = r_dead coupled into
     # rows after the dead index)
     import scipy.sparse
-    from pyiga_tpu.ops.mg import _tri_inverse
-    from pyiga_tpu.solvers import gauss_seidel
+    from pyiga_jax.ops.mg import _tri_inverse
+    from pyiga_jax.solvers import gauss_seidel
 
     A = np.array([[4., 1, .5], [2, 0., 1], [1, 3, 5.]])
     b = np.array([1., 2, 3])

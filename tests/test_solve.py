@@ -1,7 +1,7 @@
 # integration test: full 2D Poisson Dirichlet solve (reference test_solve.py)
 import numpy as np
 
-from pyiga_tpu import approx, assemble, bspline, geometry, solvers
+from pyiga_jax import approx, assemble, bspline, geometry, solvers
 
 
 def test_poisson_2d():

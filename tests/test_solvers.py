@@ -3,8 +3,8 @@ from functools import reduce
 import numpy as np
 import scipy.sparse
 
-from pyiga_tpu import assemble, bspline
-from pyiga_tpu.solvers import (
+from pyiga_jax import assemble, bspline
+from pyiga_jax.solvers import (
     GaussSeidelSmoother, OperatorSmoother, SequentialSmoother, cg_jit,
     crank_nicolson, esdirk34, fastdiag_solver, gauss_seidel, newton, ros3p,
     rodasp, sdirk3, twogrid,
@@ -102,9 +102,9 @@ def test_ode():
 def test_cg_jit_mlmatvec():
     # matrix-free CG on the compact mlmatrix representation of a 2D problem
     import jax.numpy as jnp
-    from pyiga_tpu import geometry
-    from pyiga_tpu.assemblers import StiffnessAssembler, MassAssembler
-    from pyiga_tpu.ops.mlmatvec import make_ml_matvec
+    from pyiga_jax import geometry
+    from pyiga_jax.assemblers import StiffnessAssembler, MassAssembler
+    from pyiga_jax.ops.mlmatvec import make_ml_matvec
 
     kvs = 2 * (bspline.make_knots(2, 0.0, 1.0, 8),)
     geo = geometry.quarter_annulus()
@@ -130,11 +130,11 @@ def test_cg_jit_mlmatvec():
 
 def test_cg_ir():
     import jax.numpy as jnp
-    from pyiga_tpu import geometry
-    from pyiga_tpu.assemblers import StiffnessAssembler
-    from pyiga_tpu.ops.fastdiag import fastdiag_precond, interior_dofs
-    from pyiga_tpu.ops.matfree import MatrixFreeOperator
-    from pyiga_tpu.solvers import cg_ir
+    from pyiga_jax import geometry
+    from pyiga_jax.assemblers import StiffnessAssembler
+    from pyiga_jax.ops.fastdiag import fastdiag_precond, interior_dofs
+    from pyiga_jax.ops.matfree import MatrixFreeOperator
+    from pyiga_jax.solvers import cg_ir
 
     kvs = 3 * (bspline.make_knots(2, 0.0, 1.0, 6),)
     geo = geometry.twisted_box()
@@ -155,9 +155,9 @@ def test_gmres():
     # nonsymmetric convection-diffusion system: CG is inapplicable, GMRES
     # (reference solvers rely on scipy for this; here it runs on device).
     import jax.numpy as jnp
-    from pyiga_tpu import assemble, geometry
-    from pyiga_tpu.ops.fastdiag import fastdiag_precond
-    from pyiga_tpu.solvers import gmres_jit
+    from pyiga_jax import assemble, geometry
+    from pyiga_jax.ops.fastdiag import fastdiag_precond
+    from pyiga_jax.solvers import gmres_jit
 
     kvs = 2 * (bspline.make_knots(2, 0.0, 1.0, 10),)
     geo = geometry.bspline_quarter_annulus()
@@ -189,7 +189,7 @@ def test_gmres_cache_key_not_id():
     # cycle.  Asserts (a) the cache key holds the operator itself and (b) a
     # rebuilt preconditioner gets its own cycle and a correct solve.
     import jax.numpy as jnp
-    from pyiga_tpu import solvers
+    from pyiga_jax import solvers
 
     n = 8
     A = np.diag(np.arange(1.0, n + 1))
@@ -220,7 +220,7 @@ def test_solver_cache_evicts_plain_callables():
     # arrays) alive forever
     import gc
     import weakref
-    from pyiga_tpu.solvers import cg_jit
+    from pyiga_jax.solvers import cg_jit
 
     import jax.numpy as jnp
     n = 40
@@ -240,7 +240,7 @@ def test_gauss_seidel_noncontiguous_x():
     # non-contiguous / non-f64 x must still be updated (the native kernel
     # works on a converted buffer and copies back)
     import scipy.sparse
-    from pyiga_tpu.solvers import gauss_seidel
+    from pyiga_jax.solvers import gauss_seidel
 
     n = 30
     rng = np.random.default_rng(0)

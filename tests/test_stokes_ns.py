@@ -50,9 +50,9 @@ def test_navier_stokes_device_scheme_parity():
     adaptive step sequence and states — both the fully-fused controller
     loop (integrate backend='device': chunked lax.while_loop, one fetch
     per chunk) and the per-step fallback path.  On this CPU test platform
-    large fused two-float programs may lose a few digits (see PLAN.md),
-    so the tolerance is loose; on real TPU hardware parity is ~1e-13."""
-    from pyiga_tpu import solvers
+    large fused two-float programs may lose a few digits, so the
+    tolerance is loose."""
+    from pyiga_jax import solvers
     ns = NavierStokes(n_el=(5, 8), p=2, Re=20.0)
     x0 = ns.initial_state()
     th, sh = ns.integrate(x0=x0, tau=5e-2, t_end=0.25, backend='host')

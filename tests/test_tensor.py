@@ -2,7 +2,7 @@ import numpy as np
 import scipy.sparse
 from numpy.random import rand
 
-from pyiga_tpu.tensor import (
+from pyiga_jax.tensor import (
     CanonicalOperator, CanonicalTensor, TensorProd, TensorSum, TuckerTensor,
     als, als1, als1_ls, apply_tprod, array_outer, asarray, find_truncation_rank,
     fro_norm, grou, gta, gta_ls, hosvd, matricize, modek_tprod, outer, pad,
@@ -130,7 +130,7 @@ def test_gta():
 def _kron_operator_1():
     # simple SPD Kronecker-rank-2 operator: K (x) M + M (x) K
     n = 8
-    from pyiga_tpu import assemble, bspline
+    from pyiga_jax import assemble, bspline
     kv = bspline.make_knots(2, 0.0, 1.0, n)
     K = assemble.stiffness(kv) + assemble.mass(kv)   # SPD
     M = assemble.mass(kv)
@@ -139,7 +139,7 @@ def _kron_operator_1():
 
 def test_ls():
     # 3D Laplace Kronecker system with rhs = ones (reference test_tensor:304)
-    from pyiga_tpu import assemble, bspline
+    from pyiga_jax import assemble, bspline
     kv = bspline.make_knots(3, 0.0, 1.0, 10)
     K = assemble.stiffness(kv)[1:-1, 1:-1].tocsr()
     M = assemble.mass(kv)[1:-1, 1:-1].tocsr()

@@ -2,7 +2,7 @@ import numpy as np
 import scipy.sparse
 from numpy.random import rand
 
-from pyiga_tpu import utils
+from pyiga_jax import utils
 
 
 def test_grid_eval():

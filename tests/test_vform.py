@@ -3,14 +3,14 @@ import pytest
 import scipy.sparse
 from scipy.sparse import kron as spkron
 
-from pyiga_tpu import bspline, geometry
-from pyiga_tpu.approx import interpolate
-from pyiga_tpu.assemble import (
+from pyiga_jax import bspline, geometry
+from pyiga_jax.approx import interpolate
+from pyiga_jax.assemble import (
     Assembler, assemble, assemble_vf, bsp_mixed_deriv_biform_1d, divdiv,
     inner_products, instantiate_assembler, mass, stiffness,
 )
-from pyiga_tpu.compile import compile_vform
-from pyiga_tpu.vform import (
+from pyiga_jax.compile import compile_vform
+from pyiga_jax.vform import (
     VForm, dx, grad, heat_st_vf, inner, mass_vf, parse_vf,
     stiffness_vf, wave_st_vf,
 )
@@ -148,7 +148,7 @@ def test_convection_diffusion():
 def test_assemble_surface_vf():
     vf = VForm(2, geo_dim=3, arity=1)
     v = vf.basisfuns()
-    from pyiga_tpu.vform import ds
+    from pyiga_jax.vform import ds
     vf.add(v * ds)
     kvs = 2 * (bspline.make_knots(3, 0.0, 1.0, 10),)
     geo_3d = geometry.tensor_product(geometry.line_segment(0.0, 1.0),
@@ -275,10 +275,10 @@ def test_vform_symmetry_folding():
     # symmetric); the convection part of a convection-diffusion form must
     # stay unfolded and the result match the sum of separate assemblies
     import numpy as np
-    from pyiga_tpu import assemble, geometry
-    from pyiga_tpu.bspline import make_knots
-    from pyiga_tpu.compile import compile_vform
-    from pyiga_tpu.vform import stiffness_vf
+    from pyiga_jax import assemble, geometry
+    from pyiga_jax.bspline import make_knots
+    from pyiga_jax.compile import compile_vform
+    from pyiga_jax.vform import stiffness_vf
 
     kvs = 2 * (make_knots(2, 0.0, 1.0, 6),)
     geo = geometry.bspline_quarter_annulus()
@@ -303,10 +303,10 @@ def test_vform_symmetry_folding():
 def test_vform_ozaki_mode():
     # Ozaki-split assembly through the compiled-vform API matches exact f64
     import numpy as np
-    from pyiga_tpu import geometry
-    from pyiga_tpu.bspline import make_knots
-    from pyiga_tpu.compile import compile_vform
-    from pyiga_tpu.vform import parse_vf, stiffness_vf
+    from pyiga_jax import geometry
+    from pyiga_jax.bspline import make_knots
+    from pyiga_jax.compile import compile_vform
+    from pyiga_jax.vform import parse_vf, stiffness_vf
 
     kvs = 2 * (make_knots(3, 0.0, 1.0, 6),)
     geo = geometry.quarter_annulus()
@@ -324,11 +324,11 @@ def test_vform_ozaki_mode():
 
 
 def test_prune_keeps_tiny_asymmetric_terms():
-    # per-combo structural-zero detection (ADVICE r1): a term scaled by a
+    # per-combo structural-zero detection: a term scaled by a
     # literal 1e-16 sits far below the old global 1e-13-of-max probe
     # threshold but is a genuine (asymmetric) term and must survive pruning
     # and must not be symmetry-folded
-    from pyiga_tpu.assemble import instantiate_assembler
+    from pyiga_jax.assemble import instantiate_assembler
 
     kvs = 2 * (bspline.make_knots(2, 0.0, 1.0, 5),)
     geo = geometry.bspline_quarter_annulus()
@@ -357,7 +357,7 @@ def test_physical_input_field_derivatives():
     # the reference's codegen rejects this case, codegen/cython.py:474-477).
     # Cross-check grad/hess of a physical field against supplying the
     # analytic gradient / Laplacian as plain (deriv-0) physical inputs.
-    from pyiga_tpu.vform import VForm, dot, dx, grad, hess, tr
+    from pyiga_jax.vform import VForm, dot, dx, grad, hess, tr
 
     kvs = 2 * (bspline.make_knots(3, 0.0, 1.0, 6),)
     geo = geometry.quarter_annulus()
@@ -398,7 +398,7 @@ def test_spacetime_second_order_space_derivs():
     # second-order space derivatives in space-time forms (reference parity
     # hole): on a space-time cylinder the physical d^2/dx^2 must agree with
     # the plain 2D assembly of the same term over the cylinder geometry
-    from pyiga_tpu.vform import VForm, Dx, dx
+    from pyiga_jax.vform import VForm, Dx, dx
 
     kv_x = bspline.make_knots(3, 0.0, 1.0, 5)
     kv_t = bspline.make_knots(2, 0.0, 1.0, 4)
@@ -427,8 +427,8 @@ def test_spacetime_second_order_space_derivs():
 
 
 def test_expr_tree_utilities():
-    from pyiga_tpu import vform as vf_mod
-    from pyiga_tpu.vform import (mapexprs, set_union, stiffness_vf,
+    from pyiga_jax import vform as vf_mod
+    from pyiga_jax.vform import (mapexprs, set_union, stiffness_vf,
                                  sym_index_to_seq, transform_expr)
 
     assert set_union([{1, 2}, {2, 3}, set()]) == {1, 2, 3}
@@ -456,7 +456,7 @@ def test_expr_tree_utilities():
 def test_symbolic_differentiation():
     # reference test/test_vform.py test_parameter/test_symderiv — sum,
     # product, quotient and chain rules; parameter derivatives vanish.
-    from pyiga_tpu.vform import (Dx, exprhash, transform_expr, cos,
+    from pyiga_jax.vform import (Dx, exprhash, transform_expr, cos,
                                  _to_literal_vec_mat, div, curl, as_expr)
 
     def simpl(e):
@@ -502,8 +502,8 @@ def test_input_field_hessian_assembly():
     # Laplacian functional of an interpolated field on a curved geometry
     # and check O(h^2) convergence to the exact physical Laplacian
     # (reference vform.py:593 order-2 transform incl. curvature terms).
-    from pyiga_tpu import approx, assemble
-    from pyiga_tpu.vform import hess
+    from pyiga_jax import approx, assemble
+    from pyiga_jax.vform import hess
 
     errs = []
     for n in (8, 16):

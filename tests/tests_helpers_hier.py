@@ -1,5 +1,5 @@
-from pyiga_tpu import bspline
-from pyiga_tpu.hierarchical import HSpace
+from pyiga_jax import bspline
+from pyiga_jax.hierarchical import HSpace
 
 
 def example_hspace2(p=2, n0=4):
